@@ -4,7 +4,7 @@
 The reference ships 51 gflags flagfiles under mapper_emvs_stereo/cfg/**
 encoding the paper's experiment grid (datasets x algorithms x fusion
 variants; taxonomy in docs/running.md:9-16).  This generator re-creates the
-same grid for the TPU framework with machine-independent `${DATA}` path
+same grid for this framework with machine-independent `${DATA}` path
 roots (the reference files hard-code the authors' home directories).
 
 Run `python configs/generate.py` from the repo root to (re)write configs/.

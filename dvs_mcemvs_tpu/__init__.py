@@ -1,10 +1,10 @@
-"""dvs_mcemvs_tpu — TPU-native multi-camera event-based multi-view stereo.
+"""dvs_mcemvs_tpu — multi-camera event-based multi-view stereo in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 tub-rip/dvs_mcemvs (MC-EMVS: Ghosh & Gallego, Adv. Intelligent Systems 2022):
 event back-projection into ray-density voxel grids (DSIs), multi-camera and
 temporal DSI fusion, depth-map extraction, and point clouds — engineered for
-TPU meshes instead of a single-threaded CPU pipeline.
+accelerator meshes instead of a single-threaded CPU pipeline.
 
 Layout:
   ops/       pure array operators (SE(3), camera, voting, fusion, extraction)

@@ -473,7 +473,7 @@ def run(cfg: RunConfig) -> int:
     )
     backend = cfg.splat_backend
     if backend == "auto":
-        # Pick the MXU histogram backend with a grouping bounded by the rig's
+        # Pick the histogram backend with a grouping bounded by the rig's
         # actual travel over one chunk (voting_hist.auto_backend_spec — the
         # same selection the benchmark and golden accuracy gates exercise).
         from .ops.voting_hist import auto_backend_spec
@@ -496,26 +496,16 @@ def run(cfg: RunConfig) -> int:
                 whole = min(whole, total_t)
             n_min = max(1, int(n_min * (span / max(whole, span))))
         n_pk = max(1, n_min // cfg.packet_size)
-        import jax
-
-        use_pl = jax.default_backend() == "tpu"
-        if use_pl and chunk_travel >= cfg.min_depth / 3.0:
-            # Sweep scales dip below the banded kernel's single-strip fast
-            # path; it stays exact (multi-strip) but runs extra band
-            # matmuls per plane.
-            log.info("chunk travel %.2f m >= min_depth/3: Pallas sweep "
-                     "runs multi-strip bands", chunk_travel)
         backend = auto_backend_spec(chunk_travel, n_pk,
                                     float(mappers[0].vcam.fx),
-                                    cfg.min_depth, cfg.max_depth, cfg.dimZ,
-                                    use_pl)
+                                    cfg.min_depth, cfg.max_depth, cfg.dimZ)
         log.info("auto backend: %s (chunk travel %.3f m, %d packets)",
                  backend, chunk_travel, n_pk)
     vopts = pipeline.VotingOptions(packet_size=cfg.packet_size, backend=backend,
                                    plane_block=cfg.plane_block)
 
-    # --num_devices: 0 = auto (all visible devices on TPU; 1 elsewhere,
-    # since CPU "devices" are virtual test shards), N>1 = mesh of N.
+    # --num_devices: 0 = auto (all visible devices on a GPU host; 1 on the
+    # CPU, whose "devices" are virtual test shards), N>1 = mesh of N.
     # The sharded step fuses warp -> voting -> psum -> fusion -> collapse ->
     # extraction over an ("event", "plane") mesh (parallel/sharded.py).
     sharded_runner = None
@@ -531,7 +521,9 @@ def run(cfg: RunConfig) -> int:
     if n_dev == 0:
         import jax
 
-        n_dev = len(jax.devices()) if jax.default_backend() == "tpu" else 1
+        from .utils.runtime import on_accelerator
+
+        n_dev = len(jax.devices()) if on_accelerator() else 1
     if not multihost and sharded_runner is None and n_dev > 1:
         if cfg.process_method == 1:
             sharded_runner = _make_sharded_runner(cfg, mappers, backend, opts,
@@ -765,10 +757,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = parse_args(argv if argv is not None else sys.argv[1:])
-    if cfg.platform:
-        import jax
+    import jax
 
+    from .utils.runtime import enable_compile_cache
+
+    if cfg.platform:
         jax.config.update("jax_platforms", cfg.platform)
+    log.info("compile cache: %s", enable_compile_cache())
     return run(cfg)
 
 

@@ -6,7 +6,7 @@ Reimplements the metric definitions of
 focal f) and the cumulative precision/completeness/F1/outlier curves of
 `scripts/precision_completeness.py:8-103`, as library functions returning
 numbers instead of printing/plotting.  Pure numpy — evaluation runs on the
-host, off the TPU hot path.
+host, off the device hot path.
 
 Inputs are paired arrays of estimated and ground-truth depth with a shared
 validity mask (or np.ma masked arrays, as the reference uses).

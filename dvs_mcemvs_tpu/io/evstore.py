@@ -44,9 +44,18 @@ def _build_library() -> str:
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
     if (not os.path.exists(_SO)
             or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+        # Compile to a private file and rename it into place: processes
+        # building at the same time (test workers, the ranks of one run)
+        # never load a half-written library.
+        tmp = f"{_SO}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC",
-               "-Wall", _SRC, "-shared", "-pthread", "-o", _SO]
-        subprocess.run(cmd, check=True, capture_output=True)
+               "-Wall", _SRC, "-shared", "-pthread", "-o", tmp]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+            os.replace(tmp, _SO)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return _SO
 
 

@@ -10,17 +10,61 @@ depth-points txt, negated-confidence PNG, dilated JET inverse-depth PNG),
 from __future__ import annotations
 
 import os
-from typing import Optional
+import struct
+import zlib
 
 import numpy as np
 
 from ..mapper import Events
 
 
-def _imwrite(path: str, img: np.ndarray) -> None:
-    import cv2
+def png_bytes(img: np.ndarray, level: int = 1) -> bytes:
+    """Encode an 8-bit grayscale (H, W) or RGB (H, W, 3) image as PNG
+    (no row filters, zlib `level`)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        color_type = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        color_type = 2
+    else:
+        raise ValueError(f"PNG image must be (H, W) or (H, W, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)   # filter byte 0 per row
+    rows[:, 1:] = img.reshape(h, -1)
 
-    cv2.imwrite(path, img)
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+def _imwrite(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
+
+
+def jet_colormap(v: np.ndarray) -> np.ndarray:
+    """RGB JET colors for 8-bit values (H, W) -> (H, W, 3) uint8; within
+    one level of OpenCV's COLORMAP_JET."""
+    x = np.asarray(v, np.float64) / 255.0
+    rgb = [np.clip(1.5 - np.abs(4.0 * x - c), 0.0, 1.0) for c in (3.0, 2.0, 1.0)]
+    return np.round(np.stack(rgb, axis=-1) * 255.0).astype(np.uint8)
+
+
+def dilate_cross3(img: np.ndarray) -> np.ndarray:
+    """Grayscale dilation by the 3x3 ellipse (a cross: center + 4-
+    neighbours), pixels outside the image ignored — OpenCV's
+    `dilate(img, getStructuringElement(MORPH_ELLIPSE, (3, 3)))`."""
+    out = img.copy()
+    np.maximum(out[1:], img[:-1], out=out[1:])
+    np.maximum(out[:-1], img[1:], out=out[:-1])
+    np.maximum(out[:, 1:], img[:, :-1], out=out[:, 1:])
+    np.maximum(out[:, :-1], img[:, 1:], out=out[:, :-1])
+    return out
 
 
 def timestamp_prefix(out_dir: str, ts: float) -> str:
@@ -59,21 +103,17 @@ def save_inv_depth_colored_png(
 ) -> None:
     """JET-colored inverse depth on black, masked, dilated by a 3x3 ellipse
     (utils.cpp:81-93; the ESVO-style visualization)."""
-    import cv2
-
     depth = np.asarray(depth, np.float64)
     with np.errstate(divide="ignore"):
         inv = np.where(depth > 0, 1.0 / np.maximum(depth, 1e-12), 0.0)
     scale = 255.0 / (1.0 / min_depth - 1.0 / max_depth)
     inv255 = (inv - 1.0 / max_depth) * scale
     inv8 = np.clip(inv255, 0, 255).astype(np.uint8)
-    color = cv2.applyColorMap(inv8, cv2.COLORMAP_JET)
+    color = jet_colormap(inv8)
     canvas = np.zeros_like(color)
     m = np.asarray(mask) > 0
     canvas[m] = color[m]
-    element = cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (3, 3))
-    canvas = cv2.dilate(canvas, element)
-    _imwrite(path, canvas)
+    _imwrite(path, dilate_cross3(canvas))
 
 
 def save_depth_maps(

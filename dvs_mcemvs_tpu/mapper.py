@@ -1,6 +1,6 @@
 """Per-camera EMVS mapper: DSI setup, event back-projection, extraction.
 
-TPU-native equivalent of `EMVS::MapperEMVS`
+JAX equivalent of `EMVS::MapperEMVS`
 (reference: mapper_emvs_stereo/include/mapper_emvs_stereo/mapper_emvs_stereo.hpp:94-155
 and src/mapper_emvs_stereo.cpp).  Where the reference is a mutable object with
 a `Grid3D dsi_` member filled in place, this is an immutable per-camera setup
@@ -152,8 +152,8 @@ def evaluate_dsi(
     Returns None when the chunk is smaller than one packet, mirroring the
     reference's `evaluateDSI` false return (cpp:71-75).
 
-    `rectify` = "device" recomputes event rectification analytically on the
-    VPU (the TPU-fast path); "lut" gathers the precomputed host LUT (the
+    `rectify` = "device" recomputes event rectification analytically on
+    the device, fused into the warp; "lut" gathers the precomputed host LUT (the
     reference-parity path, src/mapper_emvs_stereo.cpp:129-142).
 
     `pad` = "bucket" pads the event buffer with zero-weight events to a
@@ -164,6 +164,25 @@ def evaluate_dsi(
     """
     if events.num <= packet_size:
         return None
+    return _evaluate_dsi_jit(*dsi_step_args(
+        mapper, events, traj, T_rv_w, packet_size, backend, plane_block,
+        rectify, pad))
+
+
+def dsi_step_args(
+    mapper: Mapper,
+    events: Events,
+    traj: trajmod.Trajectory,
+    T_rv_w: SE3,
+    packet_size: int = voting.DEFAULT_PACKET_SIZE,
+    backend: str = "scatter",
+    plane_block: int = 8,
+    rectify: str = "device",
+    pad: str = "none",
+) -> tuple:
+    """The positional arguments `evaluate_dsi` passes to its jitted voting
+    step `_evaluate_dsi_jit` (so callers can lower and inspect the exact
+    step the pipeline runs)."""
     ev_weight = None
     x_arr, y_arr, t_arr = events.x, events.y, events.t
     if pad == "bucket":
@@ -186,7 +205,7 @@ def evaluate_dsi(
     K_cam = jnp.asarray(mapper.cam.P, jnp.float32)
     Kv_inv = jnp.asarray(np.linalg.inv(mapper.vcam.P), jnp.float32)
     rect_params = camops.rect_static(mapper.cam) if rectify == "device" else None
-    return _evaluate_dsi_jit(
+    return (
         jnp.asarray(x_arr, jnp.int32),
         jnp.asarray(y_arr, jnp.int32),
         jnp.asarray(t_arr, jnp.float32),

@@ -1,3 +1,3 @@
-"""Core TPU-native operators: geometry, grids, voting, extraction."""
+"""Core array operators: geometry, grids, voting, extraction."""
 
 from . import camera, depth_vector, extract, grid, pointcloud, se3, trajectory, voting  # noqa: F401

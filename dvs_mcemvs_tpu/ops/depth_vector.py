@@ -58,9 +58,8 @@ class DepthVector:
         """Closed-form depths (same formulas as `depths()`) for an integer
         index ARRAY, jit-friendly.
 
-        On TPU a gather from the (n,)-entry depth table costs ~2.4 ms for a
-        480x640 index map (scalar-memory gather, measured r4) while the
-        arithmetic is a fused multiply-add.  Matches the table to f32
+        A fused multiply-add instead of a gather from the (n,)-entry depth
+        table for every pixel of the index map.  Matches the table to f32
         rounding (the table is built in f64 and cast; here the fold happens
         in f32 — ≤1 ulp apart, verified by test)."""
         i = jnp.asarray(i, jnp.float32)

@@ -117,9 +117,8 @@ def _masked_median_bsearch(
     #\\{neighbors <= v\\} >= rank, rank = (n+1)//2 — the lower median.
 
     ceil(log2(levels)) passes of compare+add over a (p^2, H, W) int16 stack:
-    pure VPU work, ~25x less HBM traffic than the previous one-hot
-    (levels, H, W) f32 histogram + cumsum (8.3 ms -> <0.1 ms at DSEC dims
-    on TPU, exact-parity)."""
+    elementwise work, ~25x less memory traffic than a one-hot
+    (levels, H, W) f32 histogram + cumsum, exact-parity."""
     H, W = img.shape
     m = mask > 0
     v = jnp.clip(img.astype(jnp.int32), 0, levels - 1).astype(jnp.int16)
@@ -165,8 +164,7 @@ def masked_median_filter(
     indices, 256 for u8 images) selects the fast path: the same 256-bin
     histogram idea as the reference's Huang filter, but as a data-parallel
     rank binary search over the shifted neighbor planes (log2(levels)
-    compare+count passes on the VPU — see _masked_median_bsearch; <0.1 ms
-    at DSEC dims on TPU, measured r4).  Without `levels` (or > 256), falls
+    compare+count passes — see _masked_median_bsearch).  Without `levels` (or > 256), falls
     back to gather + small sort per pixel — O(HW p^2 log p^2), still one
     fused device op, and exact for any float input.
     """
@@ -237,10 +235,8 @@ def extract_from_collapsed(
     plane-sharded DSI inside `shard_map` and reuse everything after.
 
     Pass `depth_vec` when available: the index→depth step then runs as
-    closed-form arithmetic (DepthVector.depth_at_index) instead of a table
-    gather — on TPU the (H*W,)-sized gather from the small depth table
-    lowers to scalar memory and costs ~2.4 ms at DSEC dims (profiled r4),
-    more than the whole rest of the extraction chain."""
+    closed-form arithmetic (DepthVector.depth_at_index) instead of an
+    (H*W,)-sized gather from the small depth table."""
     conf_u8 = normalize_confidence(confidence, options.max_confidence)
     mask = adaptive_threshold_mask(
         conf_u8, options.adaptive_threshold_kernel_size, options.adaptive_threshold_c
@@ -304,8 +300,10 @@ def densify_host(result: DepthMapResult, depth_vec: DepthVector) -> np.ndarray:
     n_planes = len(depths)
     try:
         import cv2
-    except ImportError:  # pragma: no cover - cv2 is available in CI images
-        return depths[np.clip(idx_raw, 0, n_planes - 1)]
+    except ImportError as e:
+        raise ImportError(
+            "the dense depth map (Telea inpainting) needs OpenCV (cv2); "
+            "install it or run with --nosave_dense") from e
     inpaint_mask = (1 - mask).astype(np.uint8)
     if n_planes <= 256:
         # uint8 path: bit parity with the reference's 8U inpaint.

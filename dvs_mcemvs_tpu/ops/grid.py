@@ -1,14 +1,14 @@
 """DSI voxel-grid operations: fusion, Z-collapse, statistics, filtering.
 
-TPU-native replacement for `Grid3D` (cartesian3dgrid/include/cartesian3dgrid/
+Array replacement for `Grid3D` (cartesian3dgrid/include/cartesian3dgrid/
 cartesian3dgrid.h:22-247 and src/cartesian3dgrid.cpp).  A DSI here is a plain
 `jnp.ndarray` of shape (Z, H, W) float32 — the reference's
 `volume[x + dimX*(y + dimY*z)]` layout transposed so the depth axis is the
 leading (cheaply sharded) axis and (H, W) are the trailing (lane-tiled) axes.
 
 All two-grid fusion ops (cartesian3dgrid.h:64-192) are pure element-wise
-functions with the reference's exact epsilon semantics, so they vectorize on
-the VPU and fuse with neighbors under XLA.  The serial per-voxel loops of the
+functions with the reference's exact epsilon semantics, so they vectorize
+and fuse with neighbors under XLA.  The serial per-voxel loops of the
 reference (its header notes "do not use parallelization yet", h:63) become
 single fused device ops.
 """
@@ -204,7 +204,7 @@ def collapse_min(dsi: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-# Kernels up to this many taps run as VPU shift-adds; beyond it, lax.conv.
+# Kernels up to this many taps run as fused shift-adds; beyond it, lax.conv.
 _SHIFT_ADD_MAX_TAPS = 81
 
 
@@ -215,11 +215,9 @@ def conv2d_same(img: jnp.ndarray, kernel: jnp.ndarray, border: str = "reflect"):
             'reflect101' = cv BORDER_DEFAULT, 'replicate', 'zero'.
 
     Small kernels (<= 81 taps — every kernel on the extraction path) are
-    lowered as weighted shifted-slice sums: pure VPU adds that XLA fuses
-    into one pass.  A 1-channel `lax.conv` on TPU pads the channel dim to
-    the MXU tile and runs ~100x slower (measured 4.3 ms vs ~0 for the 5x5
-    AGT blur at 480x640); the shift-add path is also exact in f32, like
-    the Precision.HIGHEST conv it replaces.
+    lowered as weighted shifted-slice sums: elementwise adds that XLA fuses
+    into one pass instead of a 1-channel `lax.conv`; the shift-add path is
+    exact in f32, like the Precision.HIGHEST conv used for larger kernels.
     """
     kh, kw = kernel.shape
     ph, pw = kh // 2, kw // 2
@@ -256,10 +254,11 @@ def conv2d_same(img: jnp.ndarray, kernel: jnp.ndarray, border: str = "reflect"):
     x = img.reshape((-1, 1, H, W))
     x = jnp.pad(x, ((0, 0), (0, 0), (ph, kh - 1 - ph), (pw, kw - 1 - pw)), mode=mode)
     k = kernel[None, None, :, :].astype(img.dtype)
-    # HIGHEST precision: TPU conv default is bf16, which perturbs the
-    # Gaussian local means by ~0.5 u8 steps and flips adaptive-threshold
-    # mask pixels vs the OpenCV-parity CPU result.  These are tiny kernels
-    # on 2D maps — exactness costs nothing next to the DSI work.
+    # HIGHEST precision: a reduced-precision conv (bf16 passes, or TF32 on
+    # a GPU) perturbs the Gaussian local means by up to ~0.5 u8 steps and
+    # flips adaptive-threshold mask pixels vs the OpenCV-parity f32
+    # result.  These are tiny kernels on 2D maps — exactness costs nothing
+    # next to the DSI work.
     out = jax.lax.conv_general_dilated(
         x, k, window_strides=(1, 1), padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
@@ -272,10 +271,8 @@ def sep_conv2d_same(img, kx, ky, border="reflect"):
     """Separable correlation: rows by kx then columns by ky.
 
     Small static kernels run as ONE dense outer-product pass through
-    `conv2d_same`'s shift-add path: on TPU the chained two-pass form
-    compiles ~50x slower at 480x640 (4.5 ms vs 0.09 ms for the 5-tap AGT
-    blur, measured r4; an optimization barrier between the passes does not
-    help).  Mathematically identical taps — only the f32 summation order
+    `conv2d_same`'s shift-add path (one fused pass instead of two chained
+    ones).  Mathematically identical taps — only the f32 summation order
     differs (rows-then-cols vs one 2D sum), ~1 ulp.
     """
     try:

@@ -4,7 +4,7 @@ Port of `MapperEMVS::getPointcloud` (src/mapper_emvs_stereo.cpp:440-480).
 Unprojection is pure jnp; outlier removal offers two backends:
   - 'kdtree': exact PCL-equivalent RadiusOutlierRemoval via scipy cKDTree on
     the host (post-processing, off the hot path);
-  - 'voxel': TPU-resident approximate filter counting neighbors in a hashed
+  - 'voxel': device-resident approximate filter counting neighbors in a hashed
     voxel grid (cell = radius), counting the 27-cell neighborhood.
 """
 

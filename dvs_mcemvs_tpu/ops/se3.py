@@ -1,6 +1,6 @@
 """SE(3) rigid transforms as (quaternion, translation) pytrees.
 
-TPU-native replacement for the reference's minkindr `QuatTransformation`
+Batched JAX replacement for the reference's minkindr `QuatTransformation`
 (reference: mapper_emvs_stereo/include/mapper_emvs_stereo/geometry_utils.hpp:9,
 trajectory.hpp:92-127).  Everything here is pure jnp, shape-polymorphic over
 leading batch dimensions, and safe under `jit`/`vmap`.
@@ -205,10 +205,10 @@ def _skew(w):
 
 
 def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """3x3 matmul at HIGHEST precision: TPU default matmul precision is
-    bf16, which corrupts pose Jacobians (and through them every packet's
-    homography) at the ~0.4 % level; these products are tiny, exactness
-    is free."""
+    """3x3 matmul at HIGHEST precision: a reduced-precision f32 product
+    (bf16 passes, or TF32 on a GPU) corrupts pose Jacobians (and through
+    them every packet's homography) at the ~0.4 % level; these products
+    are tiny, exactness is free."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -1,6 +1,6 @@
 """Time-indexed SE(3) trajectory with vectorized linear interpolation.
 
-TPU-native replacement for the reference's `LinearTrajectory`
+Batched JAX replacement for the reference's `LinearTrajectory`
 (mapper_emvs_stereo/include/mapper_emvs_stereo/trajectory.hpp:7-129): a
 `std::map<ros::Time, Transformation>` with per-query SE(3) lerp becomes a
 sorted array of poses queried by a batched `searchsorted` + batched lerp —

@@ -16,8 +16,9 @@ Implements the reference's two-step plane-sweep voting
      splat (cartesian3dgrid.h:253-273).
 
 The reference's OpenMP-over-planes loop (cpp:168) becomes the depth axis of a
-(Z, H, W) array; the bilinear splat is a pluggable backend (see `splat_*`)
-because scatter-add is the one op TPUs have no native hardware for.
+(Z, H, W) array; the bilinear splat is a pluggable backend (see `splat_*`):
+exact scatter-add, sort + segment-sum, or the scatter-free histogram
+formulation of `voting_hist`.
 """
 
 from __future__ import annotations
@@ -98,8 +99,8 @@ def warp_events_to_z0(
     (H*W, 2) rectification LUT; K_cam: 3x3 rectified intrinsics of the real
     camera; Kinv_virtual: 3x3 inverse intrinsics of the virtual RV camera.
     When `rect_params` (camera.rect_static) is given, rectification is
-    recomputed per event on the VPU instead of gathered from `lut` — the
-    TPU-fast path (`lut` may be None then).
+    recomputed per event instead of gathered from `lut` (`lut` may be None
+    then).
 
     Divergence from the reference, by design: when a packet's pose lookup
     fails the reference shifts the packet window by one event and retries
@@ -124,10 +125,11 @@ def warp_events_to_z0(
     T_ev_rv = se3.inverse(T_rv_ev)
     R = se3.quat_to_matrix(T_ev_rv.q)              # (K, 3, 3)
     tt = T_ev_rv.t                                 # (K, 3)
-    # Geometry matmuls run at HIGHEST precision: TPU default matmul
-    # precision is bf16, which quantizes the fx/cx-scale homography terms by
-    # ~0.4 % — pixel-scale warp errors (measured: within1 drops 0.80->0.62
-    # on the golden fixture).  These are 3x3 products; the cost is nil.
+    # Geometry matmuls run at HIGHEST precision: a reduced-precision f32
+    # product (bf16 passes, or TF32 on a GPU) quantizes the fx/cx-scale
+    # homography terms by up to ~0.4 % — pixel-scale warp errors (bf16:
+    # within1 drops 0.80->0.62 on the golden fixture).  These are 3x3
+    # products; the cost is nil.
     hp = jax.lax.Precision.HIGHEST
     centers = -jnp.einsum("kij,ki->kj", R, tt, precision=hp)  # -R^T t (cpp:108)
 
@@ -158,7 +160,7 @@ def warp_events_to_z0(
 def _inv3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Batched closed-form 3x3 inverse (adjugate / determinant).
 
-    Pure elementwise math — much faster on TPU than the LAPACK-style
+    Pure elementwise math, one fused kernel, instead of the LAPACK-style
     `jnp.linalg.inv` lowering for large batches of tiny matrices.  The
     homographies it inverts are well-conditioned (near-identity pixel maps).
     """
@@ -311,9 +313,8 @@ def splat_sort(
 
     Per plane block: sort the flat voxel indices of all 4-corner votes, apply
     a segmented reduction, and write unique sorted results with a scatter the
-    compiler can vectorize (`indices_are_sorted`/`unique_indices` hints).
-    Often much faster than raw scatter-add on TPU because XLA lowers
-    non-unique scatter to a serialized loop.
+    compiler can vectorize: one write per touched voxel instead of one
+    atomic add per vote.
     """
     fx, fy, cx, cy = vcam_params
     K, P, _ = packets.xy_z0.shape
@@ -411,10 +412,6 @@ def resolve_backend(spec: str):
             kw["dtype"] = jnp.float32
         elif tok == "i8":
             kw["bin_dtype"] = jnp.int8
-        elif tok == "pl":
-            kw["engine"] = "pallas"
-        elif tok == "bf":
-            kw["merge_mode"] = "butterfly"
         else:
             raise ValueError(f"unknown hist option {tok!r} in {spec!r}")
     return voting_hist.make_hist_backend(**kw)

@@ -49,7 +49,7 @@ class ShardedRigSpec:
     z0: float
     vcam_params: Tuple[float, float, float, float]  # fx, fy, cx, cy of RV cam
     # Optional depth sampling (frozen/hashable): lets extraction run the
-    # closed-form index→depth arithmetic instead of a TPU-slow table gather.
+    # closed-form index→depth arithmetic instead of a table gather.
     depth_vec: Optional[object] = None
 
 
@@ -146,11 +146,6 @@ def _local_step(
         # equals the single-device one (not just approximates it).
         u_full = 1.0 / depths
         splat_kw["corr_u_mid"] = 0.5 * (jnp.min(u_full) + jnp.max(u_full))
-        # The explicit per-event weights here are the 0/1 padding mask from
-        # `sharded_step_inputs` — assert binariness so the windowed Pallas
-        # binning kernel keeps its sign-packed two-payload sort (the same
-        # fast path unsharded runs take when packets carry no weights).
-        splat_kw["weights_binary"] = True
     dsis = []
     for c in range(spec.n_cameras):
         traj = trajmod.Trajectory(traj_ts[c], SE3(traj_q[c], traj_t[c]))

@@ -1,6 +1,6 @@
 """Fusion pipelines and the streaming scheduler.
 
-TPU-native equivalents of the reference's three algorithm drivers and its
+JAX equivalents of the reference's three algorithm drivers and its
 sliding-window loop:
 
   - `process_1`  — multi-camera fusion at a reference view

@@ -1,6 +1,6 @@
 // Native event store: mmap-backed, time-indexed columnar event files.
 //
-// TPU-native replacement for the reference's rosbag data-loading layer
+// Replacement for the reference's rosbag data-loading layer
 // (reference: mapper_emvs_stereo/src/data_loading.cpp — C++ rosbag parsing,
 // re-executed for EVERY sliding-window chunk, main.cpp:191-199).  Here the
 // stream is ingested once into a columnar binary file; chunk windows are

